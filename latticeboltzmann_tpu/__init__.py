@@ -1,10 +1,10 @@
-"""latticeboltzmann_tpu — a TPU-native D2Q9 Lattice-Boltzmann (BGK) framework.
+"""latticeboltzmann_tpu — a D2Q9 Lattice-Boltzmann (BGK) framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the full capability set of the
 reference C implementation (jodavies/latticeboltzmann): fused
 collide-and-stream, bounce-back walls, channel forcing, float32/float64/
-bfloat16 precision parameterization, multi-chip lattice sharding with
-overlapped ICI halo exchange, and the reference's diagnostics
+bfloat16 precision parameterization, multi-device lattice sharding with
+overlapped halo exchange, and the reference's diagnostics
 (Reynolds number, MLUPS/bandwidth self-report, field snapshots, flow movie).
 """
 

@@ -26,7 +26,7 @@ PRECISIONS = {"f32": np.float32, "f64": np.float64, "bf16": "bfloat16"}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="latticeboltzmann_tpu",
-        description="TPU-native D2Q9 lattice-Boltzmann (BGK) channel flow",
+        description="D2Q9 lattice-Boltzmann (BGK) channel flow in JAX",
     )
     p.add_argument("--nx", type=int, default=400)
     p.add_argument("--ny", type=int, default=2000)
@@ -38,13 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=sorted(PRECISIONS), default="f32")
     p.add_argument("--backend", default="auto",
                    help="auto|xla|pallas|pallas-interpret|sharded|sharded-sync"
-                        "|sharded-pallas|sharded-pallas-interpret"
-                        "|sharded-pallas-fused|sharded-pallas-fused-interpret"
-                        "|sharded-pallas-rdma (experimental; see "
-                        "models/engine.py)"
-                        "|xla-ds64|pallas-ds64|pallas-ds64-interpret"
-                        "|sharded-pallas-ds64|sharded-pallas-ds64-interpret "
-                        "(pair-DP; use with --precision f64)")
+                        "|xla-ds64 (pair-DP; use with --precision f64). "
+                        "auto takes the engine measured fastest on a GPU "
+                        "(models/engine.py) and xla elsewhere")
     p.add_argument("--geometry", default="barrier",
                    help="empty|channel|barrier|reference|cylinder")
     p.add_argument("--print-stats-every", type=int, default=1000)
@@ -65,18 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path to a .lbmckpt directory (or 'latest')")
     p.add_argument("--profile-dir", default=None,
                    help="write a jax.profiler trace of the run here")
-    p.add_argument("--fast-math", action="store_true",
-                   help="hardware approximate reciprocal for 1/rho (max rel "
-                        "err 1.6e-5) — the reference's -Ofast analog "
-                        "(Makefile:2); measured slower than IEEE division "
-                        "in the current kernel, so off by default")
-    p.add_argument("--skew", dest="skew", action="store_true", default=None,
-                   help="wavefront time-skewing of the wall-free segment "
-                        "launches on the pallas backends (fixed parallelogram "
-                        "windows, zero overlap recompute at any temporal "
-                        "depth); --no-skew forces it off; default follows "
-                        "the framework's measured default")
-    p.add_argument("--no-skew", dest="skew", action="store_false")
     p.add_argument("--debug-nans", action="store_true",
                    help="abort on NaN/inf like the reference's "
                         "feenableexcept trap (src/latticeboltzmann.c:129)")
@@ -87,18 +71,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_backend(name: str) -> str:
-    if name != "auto":
-        return name
-    import jax
-
-    from .models.engine import available_backends
-
-    if jax.default_backend() == "tpu" and "pallas" in available_backends():
-        return "pallas"
-    return "xla"
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -106,8 +78,10 @@ def main(argv=None) -> int:
 
     from . import geometry
     from .core.spec import LatticeConfig
-    from .models.engine import Simulation
-    from .utils import checkpoint, stats, viz
+    from .models.engine import Simulation, resolve_backend
+    from .utils import checkpoint, compile_cache, stats, viz
+
+    compile_cache.enable()
 
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
@@ -129,16 +103,14 @@ def main(argv=None) -> int:
                 return 2
         start_step, f0, walls, cfg = checkpoint.load(path)
         print(f"resumed from {path} at step {start_step}")
-        sim = Simulation(cfg, walls, backend=resolve_backend(args.backend), f0=f0,
-                         fast_math=args.fast_math, skew=args.skew)
+        sim = Simulation(cfg, walls, backend=resolve_backend(args.backend), f0=f0)
     else:
         cfg = LatticeConfig(
             nx=args.nx, ny=args.ny, tau=args.tau, csq=args.csq,
             accel=args.accel, initial_density=args.density, dtype=dtype,
         )
         walls = geometry.build(args.geometry, cfg.nx, cfg.ny)
-        sim = Simulation(cfg, walls, backend=resolve_backend(args.backend),
-                         fast_math=args.fast_math, skew=args.skew)
+        sim = Simulation(cfg, walls, backend=resolve_backend(args.backend))
 
     # size from the config actually used (on --resume the checkpoint's
     # dtype wins over --precision)
@@ -157,9 +129,9 @@ def main(argv=None) -> int:
     if args.warmup:
         # absorb kernel compilation outside the timed run, then restore
         # the state (the reference has no compile phase to exclude).
-        # copy first: some backends donate their input buffer. Go through
-        # sim.run so the warmed kernel variant (wall_spec etc.) is the
-        # one the timed run uses. tree_map (not jnp.array) so the ds
+        # copy first: the backends donate their input buffer. Go through
+        # sim.run so the warmed program is the one the timed run uses.
+        # tree_map (not jnp.array) so the ds
         # backends' DS pair state copies leaf-wise instead of silently
         # stacking into one (2, 9, nx, ny) array.
         import jax.numpy as jnp

@@ -1,4 +1,4 @@
-// Native IO runtime for the TPU LBM framework.
+// Native IO runtime for the LBM framework.
 //
 // The reference writes field snapshots with a per-value fprintf loop
 // (PrintLattice, src/latticeboltzmann.c:610-639). At production lattice

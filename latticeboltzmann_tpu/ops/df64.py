@@ -4,13 +4,11 @@ unevaluated sums of two float32s, built from error-free transforms
 of Dekker 1971 and the dsfun/QD libraries, as used for extended
 precision on GPUs).
 
-This is the TPU-native answer to the reference's double-precision
-builds (src/prec_double_*.h): TPU v5e has no f64 ALU — jax emulates f64
-at ~130-190 MLUPS, 0.1x the reference's DP GPU rows — but the VPU runs
-f32 at full rate, and a (hi, lo) pair carries 2x24 mantissa bits, a
-relative precision of ~2^-48 ~ 3.6e-15 (vs f64's 1.1e-16; both far
-beyond the ~1e-9 observable-accuracy target docs/NUMERICS.md sets for
-DP-class physics). The exponent range is f32's — fine for LBM state
+It answers the reference's double-precision builds
+(src/prec_double_*.h) on hardware whose f64 rate is low: a (hi, lo)
+pair of f32s carries 2x24 mantissa bits, a relative precision of
+~2^-48 ~ 3.6e-15 (vs f64's 1.1e-16; both far beyond the ~1e-9
+observable-accuracy target docs/NUMERICS.md sets for DP-class physics). The exponent range is f32's — fine for LBM state
 (values in [1e-3, 1]).
 
 Correctness relies on IEEE-754 round-to-nearest f32 add/sub/mul with
@@ -23,7 +21,7 @@ compiling without an FMA ISA does (tests pin --xla_cpu_max_isa=AVX).
 `check_backend()` probes the live backend for this failure mode under
 jit, and ds_engine refuses to run on a backend that fails it;
 tests/test_ds.py validates every op against numpy float64 on CPU and
-the tpu-marked suite re-checks the transforms on the real chip.
+chip_smoke.py re-checks the probe and the engine on the GPU.
 
 A ds number is a DS(hi, lo) NamedTuple of same-shape arrays with
 |lo| <= ulp(hi)/2 (normalized). All ops are elementwise and jit-safe.
@@ -73,7 +71,7 @@ def const(x: float) -> DS:
     compile-time constant, which deletes TwoSum's ``v = s - a`` and
     silently zeroes the error term of any ds op with a constant operand
     (observed on XLA:CPU; the rewrite lives in the shared HLO pipeline,
-    so TPU is assumed hostile too). Behind the barrier the pair is an
+    so every backend is assumed hostile). Behind the barrier the pair is an
     ordinary runtime value and the rewrite cannot fire. Cost: two scalar
     barriers per constant — nothing against the elementwise math.
     """
@@ -82,22 +80,6 @@ def const(x: float) -> DS:
     lo = np.float32(v - np.float64(hi))
     bhi, blo = jax.lax.optimization_barrier((jnp.asarray(hi), jnp.asarray(lo)))
     return DS(bhi, blo)
-
-
-def const_literal(x: float) -> DS:
-    """A ds scalar constant as PLAIN numpy literals — for Pallas kernel
-    bodies only. Mosaic (the Pallas TPU compiler) performs no
-    float-unsafe constant cancellation (probed on v5e: sub/mul chains
-    with literal pair constants track float64 to ~2^-48, see
-    tests/test_tpu_smoke.py's ds smoke), and `lax.optimization_barrier`
-    has no Pallas lowering, so inside a compiled kernel the literal form
-    is both safe and free. NEVER use outside a pallas_call: the XLA HLO
-    simplifier's ``sub(add(x, c), c) -> x`` rewrite (see `const`) would
-    silently zero TwoSum error terms. Interpret-mode kernels run through
-    XLA and must use `const`."""
-    v = np.float64(x)
-    hi = np.float32(v)
-    return DS(hi, np.float32(v - np.float64(hi)))
 
 
 def zeros_like(a: DS) -> DS:
@@ -197,9 +179,8 @@ def div(a: DS, b: DS) -> DS:
 
 
 def recip(b: DS, one: DS | None = None) -> DS:
-    """1 / b — div with the a=1 residuals simplified away. `one` lets a
-    Pallas kernel body pass const_literal(1.0) (optimization_barrier has
-    no Mosaic lowering; literals are safe there — see const_literal)."""
+    """1 / b — div with the a=1 residuals simplified away. `one` is the
+    caller's const(1.0), built once per program."""
     q1 = np.float32(1.0) / b.hi
     r = sub(const(1.0) if one is None else one, mul_f(b, q1))
     q2 = r.hi / b.hi
@@ -211,92 +192,6 @@ def recip(b: DS, one: DS | None = None) -> DS:
 
 def neg(a: DS) -> DS:
     return DS(-a.hi, -a.lo)
-
-
-# --- relaxed ("fast-tier") variants ------------------------------------------
-#
-# The ops above keep every error term (~2^-47 worst case per op). The
-# variants below trade the last few bits for substantially fewer f32
-# ops — worst case ~2^-44 per op, which random-walks to ~1e-12 over the
-# 1e4-step runs the reference benchmarks (docs/NUMERICS.md quantifies
-# the measured drift; the DP-class target there is 1e-9). They are the
-# arithmetic of collide_planes_fast / the fused ds kernel's hot path.
-
-
-def add_s(a: DS, b: DS) -> DS:
-    """Sloppy ds add (Dekker add2 without the lo-pair TwoSum): 11 flops
-    vs 20. Error ~|a.lo + b.lo| ulp — fine unless the result is
-    dominated by the lo parts (catastrophic hi cancellation), which the
-    collision DAG's sums never are."""
-    s, e = two_sum(a.hi, b.hi)
-    return DS(*quick_two_sum(s, (e + a.lo) + b.lo))
-
-
-def sub_s(a: DS, b: DS) -> DS:
-    return add_s(a, DS(-b.hi, -b.lo))
-
-
-def acc(terms: list) -> DS:
-    """Error-free accumulation of n ds terms: one TwoSum cascade over
-    the hi components, error terms and lo components accumulated in
-    plain f32 (their sum is O(2^-24) of the result, so its own rounding
-    is O(2^-48)). 8(n-1)+3 flops vs 20(n-1) for chained full adds —
-    the density / velocity-numerator 9-sums at half the cost."""
-    s = terms[0].hi
-    e = terms[0].lo
-    for t in terms[1:]:
-        s, err = two_sum(s, t.hi)
-        e = e + (err + t.lo)
-    return DS(*quick_two_sum(s, e))
-
-
-def mul_nr(a: DS, b: DS) -> DS:
-    """Full ds multiply WITHOUT the final renormalization: the returned
-    lo may reach ~2 ulp(hi). Safe to feed two_sum-based adds (no
-    magnitude precondition) and further muls (two_prod is exact on any
-    f32); do not feed quick_two_sum-based code that assumes |lo| <=
-    ulp(hi)/2. 23 flops vs 26."""
-    ph, pe = two_prod(a.hi, b.hi)
-    return DS(ph, pe + (a.hi * b.lo + a.lo * b.hi))
-
-
-def split_const(x: float) -> tuple:
-    """Host-side Dekker split of a ds constant: (hi, lo, hh, hl) with
-    hh + hl == hi exactly, hh/hl 12-bit-mantissa halves. Feeds mul_c's
-    presplit two_prod (saves the 4-flop runtime split of the constant
-    operand)."""
-    v = np.float64(x)
-    hi = np.float32(v)
-    lo = np.float32(v - np.float64(hi))
-    t = _SPLIT * hi
-    hh = t - (t - hi)
-    return hi, lo, np.float32(hh), np.float32(hi - hh)
-
-
-def mul_c(a: DS, c: tuple) -> DS:
-    """a * constant, the constant presplit by split_const. 20 flops
-    (unnormalized lo, see mul_nr)."""
-    chi, clo, chh, chl = c
-    p = a.hi * chi
-    ah, al = _split(a.hi)
-    e = ((ah * chh - p) + ah * chl + al * chh) + al * chl
-    return DS(p, e + (a.hi * clo + a.lo * chi))
-
-
-def scale_pow2(a: DS, s) -> DS:
-    """a * s for s an exact power of two (both components scale
-    exactly): 2 flops."""
-    return DS(a.hi * s, a.lo * s)
-
-
-def recip_newton(b: DS, one: DS | None = None) -> DS:
-    """1 / b via one ds Newton step from the f32 hardware divide:
-    q0 = fl32(1/b.hi) has ~2^-24 relative error; r = 1 - b*q0 computed
-    at pair precision, q = q0 + q0*r doubles the bits to ~2^-48.
-    ~45 flops + 1 f32 divide (vs ~100 + 3 divides for recip)."""
-    q0 = np.float32(1.0) / b.hi
-    r = sub_s(const(1.0) if one is None else one, mul_f(b, q0))
-    return DS(*two_sum(q0, q0 * r.hi))
 
 
 def where(c, a: DS, b: DS) -> DS:

@@ -1,15 +1,13 @@
-"""Double-single (f32-pair) DP-class engine — the TPU-native answer to
-the reference's double-precision builds and benchmark columns
-(src/prec_double_avx.h, README.md:66-90 DP rows).
-
-TPU has no f64 ALU: jax's emulated f64 runs the XLA engine at ~130-190
-MLUPS (0.1-0.16x the reference's DP GPU rows — a correctness config
-only). This engine instead carries every distribution as an unevaluated
-f32 pair (ops/df64.py) and runs the whole fused stream+collide in
-compensated f32-pair arithmetic on the VPU's native f32 path: ~2^-48
-relative precision per operation (vs f64's 2^-53), which docs/NUMERICS.md
-shows is indistinguishable from f64 on every physics observable the
-reference reports, at >10x the emulated-f64 rate.
+"""Double-single (f32-pair) DP-class engine — an answer to the
+reference's double-precision builds and benchmark columns
+(src/prec_double_avx.h, README.md:66-90 DP rows) for hardware whose f64
+rate is low. It carries every distribution as an unevaluated f32 pair
+(ops/df64.py) and runs the whole fused stream+collide in compensated
+f32-pair arithmetic: ~2^-48 relative precision per operation (vs f64's
+2^-53), which docs/NUMERICS.md shows is indistinguishable from f64 on
+every physics observable the reference reports. It moves the same 144
+B/site as native f64; whether it earns its place beside the f64 engines
+is open (ROADMAP debt D2).
 
 Semantics mirror the golden model (models/golden.py =
 src/latticeboltzmann.c:216-302 serial double semantics): pull-scheme
@@ -19,10 +17,6 @@ guard evaluated at pair precision.
 
 State is a df64.DS of two (9, NX, NY) float32 arrays. Conversions to
 and from float64 happen on the host only (df64.from_f64 / to_f64).
-
-The per-window collision math (`collide_planes`) is shared with the
-fused Pallas ds kernel (ops/fused_ds_kernel.py), so the XLA and Pallas
-ds backends are arithmetic-identical by construction.
 """
 
 from __future__ import annotations
@@ -50,18 +44,13 @@ def initial_state(cfg: LatticeConfig) -> DS:
     return df64.from_f64(f)
 
 
-def _consts(cfg: LatticeConfig, literal: bool = False) -> dict:
+def _consts(cfg: LatticeConfig) -> dict:
     """Physics constants as ds scalars, split from exact float64.
     Derived values (3/csq etc.) are computed in f64 BEFORE splitting, so
     each constant is a ~2^-48-exact image of the golden model's double
     value. (Golden computes 3*u/csq as two ops; folding to (3/csq)*u
-    differs by <=1 ulp64 — far below the pair precision.)
-
-    literal=True builds plain-numpy pair constants for compiled Pallas
-    kernel bodies (df64.const_literal — Mosaic applies no constant
-    cancellation and cannot lower the optimization_barrier the XLA form
-    needs)."""
-    mk = df64.const_literal if literal else df64.const
+    differs by <=1 ulp64 — far below the pair precision.)"""
+    mk = df64.const
     csq = np.float64(cfg.csq)
     return dict(
         one=mk(1.0),
@@ -128,14 +117,12 @@ def pull(f: DS) -> DS:
 def collide_planes(p: list[DS], C: dict) -> list[DS]:
     """BGK collision on nine pulled ds planes -> nine relaxed ds planes.
 
-    Shape-agnostic (works on (NX, NY) planes for the XLA path and on
-    VMEM window tiles inside the Pallas ds kernel). Association order
+    Association order
     follows the golden model (src/latticeboltzmann.c:258-296): strict
     left-to-right density sum, ((a+b)+c) - ((d+e)+g) velocity
     numerators, feq accumulated as ((1 + 3u) + 4.5u^2) - 1.5|u|^2.
-    The +/- speed pairs share their common subterms (the pair-shared
-    factoring of the f32 Pallas kernel) — in ds arithmetic each shared
-    term is ~26 f32 ops, so the sharing matters ~2x more than at f32."""
+    The +/- speed pairs share their common subterms — in ds arithmetic
+    each shared term is ~26 f32 ops."""
     A, S, M = df64.add, df64.sub, df64.mul
 
     density = p[0]
@@ -174,93 +161,6 @@ def collide_planes(p: list[DS], C: dict) -> list[DS]:
         feq_n = M(wd, base_n)
         out[sp_] = A(p[sp_], M(itau, S(feq_p, p[sp_])))
         out[sn] = A(p[sn], M(itau, S(feq_n, p[sn])))
-    return out
-
-
-def _consts_fast(cfg: LatticeConfig, literal: bool = False) -> dict:
-    """Constants for collide_planes_fast: relaxation folded into the
-    equilibrium weights (c1 = 1-1/tau, iw_s = w_s/tau — the f32 fused
-    kernel's factoring, ops/fused_kernel.py stream_collide_window) with
-    host-precomputed Dekker splits (df64.split_const) so constant
-    multiplies skip the runtime split. In interpret/XLA mode every
-    scalar is wrapped in optimization_barrier (XLA's constant
-    cancellation, see df64.const); compiled Mosaic takes raw literals."""
-    csq = np.float64(cfg.csq)
-    itau = 1.0 / np.float64(cfg.tau)
-    c = dict(
-        c1=df64.split_const(1.0 - itau),
-        iw0=df64.split_const(np.float64(W[0]) * itau),
-        iw14=df64.split_const(np.float64(W[1]) * itau),
-        iw58=df64.split_const(np.float64(W[5]) * itau),
-        c3=df64.split_const(3.0 / csq),
-        csixth=df64.split_const(csq / 6.0),
-    )
-    one = df64.const_literal(1.0)
-    a14 = df64.const_literal(np.float64(cfg.accel) * np.float64(W[1]))
-    a58 = df64.const_literal(np.float64(cfg.accel) * np.float64(W[5]))
-    if not literal:
-        flat = jax.lax.optimization_barrier(
-            tuple(jnp.float32(v) for four in c.values() for v in four)
-            + (one.hi, one.lo, a14.hi, a14.lo, a58.hi, a58.lo)
-        )
-        keys = list(c)
-        c = {k: tuple(flat[4 * i : 4 * i + 4]) for i, k in enumerate(keys)}
-        n = 4 * len(keys)
-        one = DS(flat[n], flat[n + 1])
-        a14 = DS(flat[n + 2], flat[n + 3])
-        a58 = DS(flat[n + 4], flat[n + 5])
-    c.update(one=one, a14=a14, a58=a58)
-    return c
-
-
-def collide_planes_fast(p: list[DS], C: dict) -> list[DS]:
-    """The fast-tier twin of collide_planes: same physics, reassociated
-    for op count (~1.1k f32 flops/site vs ~2.6k):
-
-    - error-free 7/4-term accumulations for the density and velocity
-      numerators (df64.acc) with the f32 kernel's shared pair sums;
-    - one-Newton reciprocal from the f32 hardware divide;
-    - relaxation folded into the weights (out = c1*p + iw*rho*(q +/- eu),
-      quadratic term shared between opposite speeds, *0.5 exact);
-    - sloppy adds / unnormalized muls (df64.add_s/mul_nr/mul_c) on the
-      interior of the DAG.
-
-    Worst-case per-op error ~2^-44 (vs 2^-47): docs/NUMERICS.md measures
-    the end-to-end drift vs the golden f64 model — both tiers sit 3+
-    orders below the DP-class 1e-9 observable target. C from
-    _consts_fast."""
-    A, S = df64.add_s, df64.sub_s
-
-    d56 = A(p[5], p[6])
-    d78 = A(p[7], p[8])
-    d58 = A(p[5], p[8])
-    d67 = A(p[6], p[7])
-    density = df64.acc([p[0], p[1], p[2], p[3], p[4], d56, d78])
-    num_x = df64.acc([p[2], df64.neg(p[4]), d56, df64.neg(d78)])
-    num_y = df64.acc([p[1], df64.neg(p[3]), d58, df64.neg(d67)])
-    irho = df64.recip_newton(density, one=C["one"])
-    u_x = df64.mul_nr(num_x, irho)
-    u_y = df64.mul_nr(num_y, irho)
-    ux3 = df64.mul_c(u_x, C["c3"])
-    uy3 = df64.mul_c(u_y, C["c3"])
-    ssum = A(df64.mul_nr(ux3, ux3), df64.mul_nr(uy3, uy3))
-    base = S(C["one"], df64.mul_c(ssum, C["csixth"]))
-    r0 = df64.mul_c(density, C["iw0"])
-    r14 = df64.mul_c(density, C["iw14"])
-    r58 = df64.mul_c(density, C["iw58"])
-
-    out = [None] * NSPEEDS
-    out[0] = A(df64.mul_c(p[0], C["c1"]), df64.mul_nr(r0, base))
-    half = np.float32(0.5)
-    for sp_, sn, eu, r_ in (
-        (1, 3, uy3, r14),
-        (2, 4, ux3, r14),
-        (5, 7, A(ux3, uy3), r58),
-        (6, 8, S(ux3, uy3), r58),
-    ):
-        q = A(base, df64.scale_pow2(df64.mul_nr(eu, eu), half))
-        out[sp_] = A(df64.mul_c(p[sp_], C["c1"]), df64.mul_nr(r_, A(q, eu)))
-        out[sn] = A(df64.mul_c(p[sn], C["c1"]), df64.mul_nr(r_, S(q, eu)))
     return out
 
 

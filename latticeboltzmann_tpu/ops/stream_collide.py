@@ -1,14 +1,14 @@
 """Fused stream+collide and forcing as pure-XLA jittable ops.
 
-This is the portable compute path: nine `jnp.roll` pulls (XLA lowers each
-to two slices + a concat, which fuse into the consumer elementwise work),
-BGK collision, and a branchless masked bounce-back — the TPU re-design of
+This is the portable compute path: nine `jnp.roll` pulls, BGK
+collision, and a branchless masked bounce-back — the array re-design of
 the reference's scalar/vector kernels (src/latticeboltzmann.c:216-485).
 Association order of the arithmetic matches the reference's scalar kernel
 exactly so that float64 runs are bitwise-comparable to the golden model.
 
-The Pallas kernel in ops/fused_kernel.py is the performance path; this
-module is the semantics anchor and the fallback for odd shapes/backends.
+The Pallas step kernel (ops/step_kernel.py) is the GPU performance path
+and calls this module's collision and forcing expressions; this module
+is the semantics anchor and the engine of every other platform.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..core.spec import E, NSPEEDS, OPPOSITE, REFLECT_X, REFLECT_Y, W, LatticeCo
 def _compute_dtype(cfg: LatticeConfig):
     """bfloat16 is a STORAGE precision (halved HBM traffic); all
     collision arithmetic runs in float32, exactly as the Pallas kernel
-    does (ops/fused_kernel.py casts staged bf16 planes to f32). A pure-
+    does (ops/step_kernel.py casts loaded bf16 tiles to f32). A pure-
     bf16 engine is not a usable simulation: measured 68% mass drift and
     max|u| 0.49 in 900 steps on a 64x2400 channel (vs 2.5e-6 / 0.017
     for f32) — bf16's ~3 decimal digits cannot carry the relaxation's
@@ -33,8 +33,29 @@ def _compute_dtype(cfg: LatticeConfig):
     return jnp.float32 if jnp.dtype(cfg.dtype) == jnp.dtype(jnp.bfloat16) else cfg.dtype
 
 
-def _const(cfg: LatticeConfig, x: float):
-    return jnp.asarray(x, dtype=_compute_dtype(cfg))
+def source_delta(cfg: LatticeConfig) -> np.ndarray:
+    """Per-speed forcing increments in the compute dtype: +y speeds
+    (5,1,8) gain accel*w, -y speeds (6,3,7) lose it
+    (src/latticeboltzmann.c:489-518)."""
+    dt = np.dtype(_compute_dtype(cfg))
+    a14 = np.asarray(cfg.accel, dt) * np.asarray(W[1], dt)
+    a58 = np.asarray(cfg.accel, dt) * np.asarray(W[5], dt)
+    delta = np.zeros((NSPEEDS,), dtype=dt)
+    delta[[5, 8]] = a58
+    delta[1] = a14
+    delta[[6, 7]] = -a58
+    delta[3] = -a14
+    return delta
+
+
+def source_ok(f3, f6, f7, solid, cfg: LatticeConfig):
+    """Forcing guard: a fluid site whose three decremented speeds all
+    stay > 0 (src/latticeboltzmann.c:496-499). Inputs in the compute
+    dtype; shared with the Pallas kernel so both test identically."""
+    delta = source_delta(cfg)
+    a14, a58 = -delta[3], -delta[6]
+    zero = np.zeros((), delta.dtype)
+    return (~solid) & (f6 - a58 > zero) & (f3 - a14 > zero) & (f7 - a58 > zero)
 
 
 def apply_source(f: jax.Array, walls: jax.Array, cfg: LatticeConfig) -> jax.Array:
@@ -48,23 +69,9 @@ def apply_source(f: jax.Array, walls: jax.Array, cfg: LatticeConfig) -> jax.Arra
     rounded back to the storage dtype.
     """
     dt = np.dtype(_compute_dtype(cfg))
-    a14 = jnp.asarray(np.asarray(cfg.accel, dt) * np.asarray(W[1], dt), dt)
-    a58 = jnp.asarray(np.asarray(cfg.accel, dt) * np.asarray(W[5], dt), dt)
     col = f[:, :, 0].astype(dt)  # (9, NX)
-    zero = jnp.zeros((), dt)
-    ok = (
-        (~walls[:, 0])
-        & (col[6] - a58 > zero)
-        & (col[3] - a14 > zero)
-        & (col[7] - a58 > zero)
-    )
-    # per-speed signed increments: +y speeds gain, -y speeds lose
-    delta = np.zeros((NSPEEDS,), dtype=dt)
-    delta[[5, 8]] = np.asarray(cfg.accel, dt) * np.asarray(W[5], dt)
-    delta[1] = np.asarray(cfg.accel, dt) * np.asarray(W[1], dt)
-    delta[[6, 7]] = -(np.asarray(cfg.accel, dt) * np.asarray(W[5], dt))
-    delta[3] = -(np.asarray(cfg.accel, dt) * np.asarray(W[1], dt))
-    new_col = jnp.where(ok[None, :], col + jnp.asarray(delta)[:, None], col)
+    ok = source_ok(col[3], col[6], col[7], walls[:, 0], cfg)
+    new_col = jnp.where(ok[None, :], col + jnp.asarray(source_delta(cfg))[:, None], col)
     return f.at[:, :, 0].set(new_col.astype(f.dtype))
 
 
@@ -78,19 +85,19 @@ def pull(f: jax.Array) -> jax.Array:
     return jnp.stack(planes)
 
 
-def collide(pulled: jax.Array, cfg: LatticeConfig) -> jax.Array:
-    """BGK collision, scalar-kernel association order
-    (src/latticeboltzmann.c:258-296). `pulled` must already be in the
-    compute dtype (stream_collide casts bf16 storage up to f32)."""
+def collide_planes(ft: list, cfg: LatticeConfig) -> list:
+    """BGK collision on a list of nine planes, scalar-kernel association
+    order (src/latticeboltzmann.c:258-296). The planes must already be
+    in the compute dtype. The Pallas step kernel calls this on its tiles,
+    so both engines relax with the same expression."""
     dt = np.dtype(_compute_dtype(cfg))
-    ft = pulled
-    one = _const(cfg, 1.0)
-    three = _const(cfg, 3.0)
-    threeotwo = _const(cfg, 1.5)
-    nineotwo = _const(cfg, 4.5)
-    csq = _const(cfg, cfg.csq)
-    itau = one / _const(cfg, cfg.tau)
-    w = [jnp.asarray(np.asarray(W[s], dt)) for s in range(NSPEEDS)]
+    one = dt.type(1.0)
+    three = dt.type(3.0)
+    threeotwo = dt.type(1.5)
+    nineotwo = dt.type(4.5)
+    csq = dt.type(cfg.csq)
+    itau = one / dt.type(cfg.tau)
+    w = [dt.type(W[s]) for s in range(NSPEEDS)]
 
     density = ft[0]
     for s in range(1, NSPEEDS):
@@ -110,7 +117,14 @@ def collide(pulled: jax.Array, cfg: LatticeConfig) -> jax.Array:
             one + three * u[s] / csq + nineotwo * u[s] * u[s] / csq / csq - uterm
         )
         out.append(ft[s] + itau * (fequ - ft[s]))
-    return jnp.stack(out)
+    return out
+
+
+def collide(pulled: jax.Array, cfg: LatticeConfig) -> jax.Array:
+    """BGK collision on a stacked (9, ...) array (see collide_planes).
+    `pulled` must already be in the compute dtype (stream_collide casts
+    bf16 storage up to f32)."""
+    return jnp.stack(collide_planes([pulled[s] for s in range(NSPEEDS)], cfg))
 
 
 def stream_collide(
@@ -173,7 +187,7 @@ def run_steps(
     slip_y: jax.Array | None = None,
 ) -> jax.Array:
     """n_steps timesteps under one jit(scan) — zero host round-trips,
-    the TPU analog of the reference's two-steps-per-call loop
+    the counterpart of the reference's two-steps-per-call loop
     (src/latticeboltzmann.c:148-164)."""
 
     def body(carry, _):

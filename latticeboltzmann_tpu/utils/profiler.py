@@ -1,4 +1,4 @@
-"""Profiling hooks — the TPU equivalent of the reference's self-timing
+"""Profiling hooks — the counterpart of the reference's self-timing
 (GetWallTime, src/latticeboltzmann.c:643-648) and its externally-traced
 MPI timelines (img/comms-*.png): jax.profiler traces viewable in
 TensorBoard/Perfetto, plus a simple step timer.

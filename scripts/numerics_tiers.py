@@ -9,7 +9,7 @@ measures, on the 800x4000 reference scene (bench.py's headline):
 
 1. short-horizon trajectory tracking (500 / 2000 steps, before the
    wake turns chaotic): max relative state error and Reynolds at a
-   flow-reached column vs the emulated-f64 'xla' backend (bitwise the
+   flow-reached column vs the float64 'xla' backend (bitwise the
    golden serial-double model, tests/test_xla_parity.py);
 2. conservation at 10,000 steps: total-mass drift relative to the
    initial mass (exactly conserved by the physics; forcing injects
@@ -47,7 +47,6 @@ def main() -> int:
     import jax.numpy as jnp
 
     from latticeboltzmann_tpu import LatticeConfig, Simulation, geometry
-    from latticeboltzmann_tpu.utils.tpulock import tpu_lock
 
     nx, ny = args.nx, args.ny
     walls = geometry.reference_barrier(nx, ny)
@@ -84,16 +83,15 @@ def main() -> int:
             wake_mean=wake_mean, wake_std=wake_std,
         )
 
-    with tpu_lock():
-        tiers = {}
-        tiers["f32"] = run_tier("pallas", np.float32)
-        tiers["bf16"] = run_tier("pallas", jnp.bfloat16)
-        tiers["ds64"] = run_tier("pallas-ds64", np.float64, probe_run=False)
-        jax.config.update("jax_enable_x64", True)
-        try:
-            tiers["f64"] = run_tier("xla", np.float64)
-        finally:
-            jax.config.update("jax_enable_x64", False)
+    tiers = {}
+    tiers["f32"] = run_tier("pallas", np.float32)
+    tiers["bf16"] = run_tier("pallas", jnp.bfloat16)
+    tiers["ds64"] = run_tier("xla-ds64", np.float64, probe_run=False)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        tiers["f64"] = run_tier("xla", np.float64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
 
     anchor = tiers["f64"]
 

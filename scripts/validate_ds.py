@@ -1,8 +1,8 @@
 """DP-class validation of the double-single backends at reference scale.
 
 Runs the reference's default scene (400x2000 barrier,
-src/latticeboltzmann.c:40-47/567-573) for N steps on the fused ds
-kernel (fast tier) AND on the emulated-f64 'xla' backend — which is
+src/latticeboltzmann.c:40-47/567-573) for N steps on the ds engine
+AND on the float64 'xla' backend — which is
 bitwise the golden serial-double model (tests/test_xla_parity.py) and
 therefore a tractable stand-in for golden at sizes where the NumPy
 oracle would take hours — then compares:
@@ -35,34 +35,31 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2000)
     ap.add_argument("--nx", type=int, default=400)
     ap.add_argument("--ny", type=int, default=2000)
-    ap.add_argument("--backend", default="pallas-ds64",
-                    help="ds backend under test (pallas-ds64 | xla-ds64)")
+    ap.add_argument("--backend", default="xla-ds64", help="ds backend under test")
     args = ap.parse_args()
 
     import jax
 
     from latticeboltzmann_tpu import LatticeConfig, Simulation, geometry
-    from latticeboltzmann_tpu.utils.tpulock import tpu_lock
 
-    with tpu_lock():
-        cfg = LatticeConfig(nx=args.nx, ny=args.ny, dtype=np.float64)
-        walls = geometry.channel_with_barrier(cfg.nx, cfg.ny)
+    cfg = LatticeConfig(nx=args.nx, ny=args.ny, dtype=np.float64)
+    walls = geometry.channel_with_barrier(cfg.nx, cfg.ny)
 
-        ds = Simulation(cfg, walls, backend=args.backend)
-        mass0 = float(np.sum(ds.state()))
-        ds.run(args.steps)
-        st_ds = ds.state()
-        re_ds = ds.reynolds()
+    ds = Simulation(cfg, walls, backend=args.backend)
+    mass0 = float(np.sum(ds.state()))
+    ds.run(args.steps)
+    st_ds = ds.state()
+    re_ds = ds.reynolds()
 
-        # emulated-f64 reference (bitwise the golden serial-double model)
-        jax.config.update("jax_enable_x64", True)
-        try:
-            ref = Simulation(cfg, walls, backend="xla")
-            ref.run(args.steps)
-            st_64 = ref.state()
-            re_64 = ref.reynolds()
-        finally:
-            jax.config.update("jax_enable_x64", False)
+    # float64 reference (bitwise the golden serial-double model)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        ref = Simulation(cfg, walls, backend="xla")
+        ref.run(args.steps)
+        st_64 = ref.state()
+        re_64 = ref.reynolds()
+    finally:
+        jax.config.update("jax_enable_x64", False)
 
     state_rel = float(
         np.max(np.abs(st_ds - st_64) / np.maximum(np.abs(st_64), 1e-30))

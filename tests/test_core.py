@@ -112,19 +112,3 @@ def test_cli_parser_extras():
          "--movie", "out.gif", "--debug-nans"]
     )
     assert args.geometry == "cylinder" and args.debug_nans
-
-
-def test_plan_rejects_oversized_temporal():
-    """An explicit temporal override beyond the block rows must fail
-    fast at plan time (not minutes later at kernel trace/compile)."""
-    import pytest
-
-    from latticeboltzmann_tpu.core.spec import LatticeConfig
-    from latticeboltzmann_tpu.ops import fused_kernel as fk
-
-    cfg = LatticeConfig(nx=64, ny=40, dtype=np.float32)
-    walls = np.zeros((64, 40), bool)
-    # 35 > br=32 but <= ny, so the plan reaches the validation (a depth
-    # beyond ny itself returns None = the documented XLA fallback)
-    with pytest.raises(ValueError, match="temporal"):
-        fk._plan(cfg, 64, walls, 35, False, True)

@@ -3,8 +3,9 @@
 Validates ops/df64.py's error-free transforms against numpy float64 and
 the ds engine (ops/ds_engine.py) against the golden serial-double model
 — the DP-class accuracy contract of docs/NUMERICS.md. These run on XLA
-CPU; the tpu-marked smoke suite re-checks the transforms on the real
-chip (IEEE f32 round-to-nearest is the only hardware assumption)."""
+CPU; chip_smoke.py re-checks the transforms (df64.check_backend) and the
+engine against golden on the GPU (IEEE f32 round-to-nearest is the only
+hardware assumption)."""
 
 import numpy as np
 import pytest
@@ -128,8 +129,7 @@ def test_ds_engine_matches_golden_f64():
     """The full ds step chain vs the golden serial-double model: after
     300 steps on a barrier scene the state agrees to ~1e-12 relative —
     DP-class by any observable standard (f32 diverges at ~1e-4 by then).
-    This is the accuracy half of the DP-column claim; the perf half is
-    the benchmark row (BENCH_RESULTS.md)."""
+    This is the accuracy half of the DP-column claim."""
     cfg, walls = _scene()
     n = 300
     f_gold = golden.run(golden.initial_state(cfg), walls, cfg, n)
@@ -162,124 +162,6 @@ def test_ds_engine_forcing_guard_matches_golden():
     changed_w = want != f64_state
     changed_g = np.abs(got - f64_state) > 1e-13
     np.testing.assert_array_equal(changed_g, changed_w)
-
-
-# --- fused Pallas ds kernel (interpret mode; compiled semantics are
-# --- tpu-marked in tests/test_tpu_smoke.py) ---------------------------------
-
-
-def test_fused_ds_kernel_exact_bitwise_vs_xla_ds():
-    """exact=True runs ds_engine.collide_planes on VMEM windows — the
-    SAME arithmetic DAG per site as xla-ds64, so the result must be
-    bitwise identical (pad-mirror lanes are exact copies, halo rows are
-    recomputed with identical ops)."""
-    from latticeboltzmann_tpu.ops import fused_ds_kernel
-
-    cfg, walls = _scene(nx=32, ny=96)
-    a = ds_engine.state_f64(
-        fused_ds_kernel.run_steps(
-            ds_engine.initial_state(cfg), np.asarray(walls), cfg, 20,
-            interpret=True, exact=True, temporal=2,
-        )
-    )
-    b = ds_engine.state_f64(
-        ds_engine.run_steps(ds_engine.initial_state(cfg), np.asarray(walls), cfg, 20)
-    )
-    np.testing.assert_array_equal(a, b)
-
-
-def test_fused_ds_kernel_temporal_bitwise_invariance():
-    """Results are bitwise independent of the temporal-blocking depth
-    (same per-site arithmetic, different fusion), including an odd step
-    count that exercises the shallower tail pass. Depths limited to 2 on
-    CPU: each sub-step unrolls the whole ds DAG into the interpret-mode
-    XLA program, and a T=3+ compile takes minutes on a 1-core host (the
-    tpu-marked smoke runs the compiled T=4 default on the real chip)."""
-    from latticeboltzmann_tpu.ops import fused_ds_kernel
-
-    cfg, walls = _scene(nx=32, ny=96)
-    outs = [
-        ds_engine.state_f64(
-            fused_ds_kernel.run_steps(
-                ds_engine.initial_state(cfg), np.asarray(walls), cfg, 21,
-                interpret=True, temporal=t,
-            )
-        )
-        for t in (1, 2)
-    ]
-    np.testing.assert_array_equal(outs[0], outs[1])
-
-
-def test_fused_ds_kernel_fast_tier_vs_golden():
-    """The fast-tier collision (collide_planes_fast: sloppy adds,
-    unnormalized muls, Newton reciprocal — ~2^-44/op) still tracks the
-    golden serial-double model to ~1e-12 relative over 200 steps."""
-    from latticeboltzmann_tpu.ops import fused_ds_kernel
-
-    cfg, walls = _scene(nx=32, ny=96)
-    n = 200
-    got = ds_engine.state_f64(
-        fused_ds_kernel.run_steps(
-            ds_engine.initial_state(cfg), np.asarray(walls), cfg, n,
-            interpret=True, temporal=2,
-        )
-    )
-    want = golden.run(golden.initial_state(cfg), walls, cfg, n)
-    err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
-    assert err.max() < 1e-11, f"max rel {err.max():.3e}"
-
-
-def test_fused_ds_refresh_boundary():
-    """Step counts straddling the pad-refresh interval agree with the
-    XLA ds engine (the decayed-pad hazard is exactly at K*T steps)."""
-    from latticeboltzmann_tpu.ops import fused_ds_kernel
-    from latticeboltzmann_tpu.ops.fused_kernel import pick_layout, refresh_interval
-
-    cfg, walls = _scene(nx=16, ny=40)
-    T = 2
-    nyp, lpad = pick_layout(cfg.ny, T)
-    K = refresh_interval(lpad, nyp - lpad - cfg.ny, cfg.ny, T)
-    n = K * T + 3  # crosses one refresh, ends mid-chunk with a tail pass
-    a = ds_engine.state_f64(
-        fused_ds_kernel.run_steps(
-            ds_engine.initial_state(cfg), np.asarray(walls), cfg, n,
-            interpret=True, exact=True, temporal=T,
-        )
-    )
-    b = ds_engine.state_f64(
-        ds_engine.run_steps(ds_engine.initial_state(cfg), np.asarray(walls), cfg, n)
-    )
-    np.testing.assert_array_equal(a, b)
-
-
-def test_sharded_ds_kernel_bitwise_vs_local():
-    """The multi-chip ds path (row decomposition + ppermute pair-halo
-    exchange + ext-halo kernel form) is bitwise the local ds kernel on
-    the 8-device virtual mesh — same per-site arithmetic, the halos
-    merely replace the local kernel's wrapping block reads. 61 steps
-    crosses the pad refresh and exercises the tail pass."""
-    from latticeboltzmann_tpu.models.engine import Simulation
-
-    cfg, walls = _scene(nx=64, ny=96)
-    a = Simulation(cfg, walls, backend="sharded-pallas-ds64-interpret").run(61).state()
-    b = Simulation(cfg, walls, backend="pallas-ds64-interpret").run(61).state()
-    np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_ds_simulation_facade():
-    """The pallas-ds64-interpret backend through the Simulation facade:
-    f64 state, finite observables, fast-tier accuracy vs golden."""
-    from latticeboltzmann_tpu.models.engine import Simulation
-
-    cfg, walls = _scene()
-    sim = Simulation(cfg, walls, backend="pallas-ds64-interpret")
-    sim.run(60)
-    st = sim.state()
-    assert st.dtype == np.float64
-    ref = golden.run(golden.initial_state(cfg), walls, cfg, 60)
-    err = np.abs(st - ref) / np.maximum(np.abs(ref), 1e-30)
-    assert err.max() < 1e-12
-    assert np.isfinite(sim.reynolds())
 
 
 def test_ds_simulation_facade():

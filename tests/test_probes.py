@@ -85,9 +85,8 @@ def test_probe_validation(small_cfg, small_walls):
 
 
 def test_pallas_fused_probes_every_1(small_walls):
-    """run_probed(every=1) on the pallas backend: per-step series fused
-    into the kernel-pass loop (one jit, one host sync), matching the xla
-    fused series."""
+    """run_probed(every=1) on the pallas backend (per-step chunks of the
+    step kernel) matches the xla fused per-step series."""
     cfg = LatticeConfig(nx=24, ny=40, dtype=np.float32)
     pal = Simulation(cfg, small_walls, backend="pallas-interpret")
     series_p = pal.run_probed(6, PROBES)
@@ -95,16 +94,15 @@ def test_pallas_fused_probes_every_1(small_walls):
     assert pal.steps_done == 6
     ref = Simulation(cfg, small_walls, backend="xla")
     series_x = ref.run_probed(6, PROBES)
-    # atol 2e-7: the suite caps XLA:CPU at AVX (no FMA contraction; see
-    # conftest.py) so the two paths' association-order noise on the
-    # near-zero uy probes peaks just above 1e-7 after 6 steps
-    np.testing.assert_allclose(series_p, series_x, rtol=1e-5, atol=2e-7)
-    np.testing.assert_allclose(pal.state(), ref.state(), rtol=1e-5, atol=2e-7)
+    # the kernel computes the XLA engine's expression, and the suite caps
+    # XLA:CPU at AVX (no FMA contraction; conftest.py): equal bitwise
+    np.testing.assert_array_equal(series_p, series_x)
+    np.testing.assert_array_equal(pal.state(), ref.state())
 
 
 def test_pallas_fused_probes_every_8(small_walls):
-    """even `every` uses fixed-role pairs; series equals every 8th row of
-    the per-step series."""
+    """An even `every` on the pallas backend: the series equals every 8th
+    row of the per-step series."""
     cfg = LatticeConfig(nx=24, ny=40, dtype=np.float32)
     a = Simulation(cfg, small_walls, backend="pallas-interpret")
     s8 = a.run_probed(16, PROBES, every=8)
@@ -115,7 +113,7 @@ def test_pallas_fused_probes_every_8(small_walls):
 
 
 def test_pallas_fused_probes_odd_every(small_walls):
-    """odd `every` (swapped-role single passes) still matches."""
+    """An odd `every` on the pallas backend still matches."""
     cfg = LatticeConfig(nx=24, ny=40, dtype=np.float32)
     a = Simulation(cfg, small_walls, backend="pallas-interpret")
     s3 = a.run_probed(6, PROBES, every=3)
@@ -125,33 +123,29 @@ def test_pallas_fused_probes_odd_every(small_walls):
 
 
 def test_sharded_pallas_fused_probes():
-    """The sharded probed runner (one shard_map jit, psum-reduced probe
-    gather) matches the xla per-step series and final state — the
-    host-chunked loop it replaced is gone for pallas-sharded backends."""
+    """Probes on the sharded backend (chunks, device-side gather) match
+    the xla per-step series and final state bitwise."""
     cfg = LatticeConfig(nx=64, ny=40, dtype=np.float32)
     walls = geometry.channel(cfg.nx, cfg.ny)
     walls[20:30, 10:13] = True
-    sh = Simulation(cfg, walls, backend="sharded-pallas-interpret")
+    sh = Simulation(cfg, walls, backend="sharded")
     s = sh.run_probed(8, PROBES, every=2)
     ref = Simulation(cfg, walls, backend="xla")
     s1 = ref.run_probed(8, PROBES)
     assert s.shape == (4, 3, 3)
-    # atol 2e-7: AVX-capped CPU suite (no FMA; conftest.py) — same
-    # association-order noise note as test_pallas_fused_probes_every_1
-    np.testing.assert_allclose(s, s1[1::2], rtol=1e-5, atol=2e-7)
-    np.testing.assert_allclose(sh.state(), ref.state(), rtol=1e-5, atol=2e-7)
+    np.testing.assert_array_equal(s, s1[1::2])
+    np.testing.assert_array_equal(sh.state(), ref.state())
 
 
 def test_sharded_pallas_fused_probes_odd_every():
-    """Odd `every` (swapped-role single passes) on the sharded runner."""
+    """Odd `every` on the sharded backend."""
     cfg = LatticeConfig(nx=64, ny=40, dtype=np.float32)
     walls = geometry.channel(cfg.nx, cfg.ny)
-    sh = Simulation(cfg, walls, backend="sharded-pallas-interpret")
+    sh = Simulation(cfg, walls, backend="sharded")
     s = sh.run_probed(6, PROBES, every=3)
     ref = Simulation(cfg, walls, backend="xla")
     s1 = ref.run_probed(6, PROBES)
-    # atol 2e-7: AVX-capped CPU suite (no FMA; conftest.py)
-    np.testing.assert_allclose(s, s1[2::3], rtol=1e-5, atol=2e-7)
+    np.testing.assert_array_equal(s, s1[2::3])
 
 
 def test_probe_moments_accumulate_f32_for_bf16():

@@ -91,89 +91,6 @@ def test_halo_exchange_communicates_across_boundary(cfg8):
     assert out[2, shard_rows, 5] > 1.0
 
 
-def test_sharded_pallas_matches_xla_sharded():
-    """Production path: Pallas local kernel + ppermute halos inside
-    shard_map (interpret mode on the 8-device CPU mesh) vs the XLA
-    engines."""
-    cfg = LatticeConfig(nx=8 * 16, ny=40, dtype=np.float32)
-    w = geometry.channel(cfg.nx, cfg.ny)
-    w[40:80, 12:15] = True
-    out = Simulation(cfg, w, backend="sharded-pallas-interpret").run(16).state()
-    ref = Simulation(cfg, w, backend="xla").run(16).state()
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
-
-
-def test_sharded_pallas_sync_schedule():
-    """The few-launch synchronous halo schedule (overlap=False:
-    full-range union partition, halos attached to the edge-containing
-    runs) matches the overlap schedule across device counts and refresh
-    boundaries (61 steps crosses the ny=200 pad refresh twice and
-    exercises the T=1 remainder path). Tolerance is the program-shape
-    FMA-contraction noise (docs/NUMERICS.md "Why jit is not bitwise"):
-    the two schedules partition the same math into differently-shaped
-    launches."""
-    from latticeboltzmann_tpu.models import engine
-    from latticeboltzmann_tpu.parallel import sharded
-
-    cfg = LatticeConfig(nx=64, ny=200, dtype=np.float32)
-    w = geometry.channel_with_barrier(cfg.nx, cfg.ny)
-    ref = Simulation(cfg, w, backend="sharded-pallas-interpret").run(61).state()
-    for ndev in (2, 4):
-        mesh = sharded.make_mesh(ndev)
-        engine.register_backend(
-            "_sync", sharded.make_pallas_backend(mesh, interpret=True, overlap=False)
-        )
-        got = Simulation(cfg, w, backend="_sync").run(61).state()
-        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
-
-
-def test_sharded_pallas_odd_steps():
-    cfg = LatticeConfig(nx=8 * 16, ny=40, dtype=np.float32)
-    w = geometry.channel(cfg.nx, cfg.ny)
-    out = Simulation(cfg, w, backend="sharded-pallas-interpret").run(5).state()
-    ref = Simulation(cfg, w, backend="xla").run(5).state()
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
-
-
-def test_sharded_pallas_packet_crosses_devices():
-    """Pure streaming packet crosses a device boundary through the
-    pallas halo path."""
-    cfg = LatticeConfig(nx=8 * 16, ny=40, dtype=np.float32, tau=1e9, accel=0.0)
-    walls = geometry.empty(cfg.nx, cfg.ny)
-    from latticeboltzmann_tpu.models.engine import initial_state
-
-    f = initial_state(cfg)
-    f[2, 15, 5] += 1.0  # last row of device 0, +x mover
-    sim = Simulation(cfg, walls, backend="sharded-pallas-interpret", f0=f)
-    sim.run(2)
-    out = sim.state()
-    assert out[2, 17, 5] > 1.0
-
-
-def test_sharded_pallas_wall_spec_bitwise():
-    """The sharded spec path (in-kernel global-row iota mask from the
-    shard's SMEM offset, no walls DMA, no wall-halo ppermute) is bitwise
-    identical to the sharded mask-DMA path and to the unsharded kernel,
-    across all 8 virtual devices."""
-    cfg = LatticeConfig(nx=8 * 16, ny=128, dtype=np.float32)
-    # one geometry: the spec-vs-DMA mechanism is geometry-independent and
-    # the cylinder spec is covered by the local-path bitwise test
-    for geom in ("barrier",):
-        walls = geometry.build(geom, cfg.nx, cfg.ny)
-        spec_sim = Simulation(cfg, walls, backend="sharded-pallas-interpret")
-        assert spec_sim.wall_spec is not None
-        spec_sim.run(8)
-        dma_sim = Simulation(cfg, walls, backend="sharded-pallas-interpret")
-        dma_sim.wall_spec = None
-        dma_sim.run(8)
-        ref = Simulation(cfg, walls, backend="pallas-interpret").run(8)
-        np.testing.assert_array_equal(spec_sim.state(), dma_sim.state())
-        # vs the unsharded kernel: different block shapes (local br=16 vs
-        # global br=32) compile to different FMA contractions on CPU, so
-        # agreement is ULP-level rather than bitwise
-        np.testing.assert_allclose(spec_sim.state(), ref.state(), rtol=0, atol=1e-7)
-
-
 def test_dryrun_multichip_inline():
     """The driver's multi-chip gate, inline: under the conftest's 8
     virtual CPU devices dryrun_multichip must run in-process and pass
@@ -224,20 +141,6 @@ def test_dryrun_multichip_driver_subprocess():
     assert "DRYRUN_OK" in proc.stdout
 
 
-def test_rdma_interpret_guard():
-    """The in-kernel remote-DMA halo path (sharded-pallas-rdma) has no
-    interpret-mode support in jax 0.9 (remote DMA under shard_map
-    mis-shapes / deadlocks — docs/SCALING.md); the kernel factory must
-    refuse clearly instead of hanging the suite."""
-    from latticeboltzmann_tpu.ops import fused_kernel as fk
-
-    cfg = LatticeConfig(nx=128, ny=256, dtype=np.float32)
-    nyp, lpad = fk.pick_layout(cfg.ny, 4)
-    with pytest.raises(ValueError, match="interpret"):
-        fk.make_step(cfg, 128, nyp, 32, True, 4, external_halo=True,
-                     wall_spec=(("channel",),), lpad=lpad, rdma=True)
-
-
 def test_sharded_bf16_matches_unsharded(cfg8, walls8):
     """bf16 storage through the sharded XLA backend: computes in f32
     per the mixed-precision contract (ops.collide expects compute-dtype
@@ -251,109 +154,3 @@ def test_sharded_bf16_matches_unsharded(cfg8, walls8):
     np.testing.assert_array_equal(
         np.asarray(out, np.float32), np.asarray(ref, np.float32)
     )
-
-
-def test_shard_partition_regions_structure():
-    """The union partition (SPMD wall specialization of the sharded
-    interior): runs cover local blocks [1, nb-1) exactly, masked runs
-    come first, a wall in ANY shard masks that local block for all
-    shards, and the edge flags see the neighbor shard's halo rows."""
-    from latticeboltzmann_tpu.ops import fused_kernel as fk
-
-    br, T, ny = 32, 3, 40
-    nyp, lpad = fk.pick_layout(ny, T)
-    # 2 shards x 4 blocks; barrier rows 40-43 live ONLY in shard 0
-    m = np.zeros((256, ny), bool)
-    m[40:44, 10:20] = True
-    top_wm, runs, bot_wm = fk.shard_partition_regions(m, 2, br, T, ny, nyp, lpad)
-    assert not top_wm and not bot_wm  # no wall near any shard edge (wrap incl.)
-    covered = sorted(b for (s, ln, _, _) in runs for b in range(s, s + ln))
-    assert covered == [1, 2]
-    flags = {s: wm for (s, ln, wm, _) in runs}
-    assert flags[1] is True and flags[2] is False  # union masks block 1 in BOTH shards
-    assert [wm for (_, _, wm, _) in runs] == sorted(
-        (wm for (_, _, wm, _) in runs), reverse=True
-    )  # masked-first
-
-    # a wall in shard 1's block-2 window must mask local block 2 everywhere
-    m2 = m.copy()
-    m2[128 + 70, :] = True
-    _, runs2, _ = fk.shard_partition_regions(m2, 2, br, T, ny, nyp, lpad)
-    f2 = {s: wm for (s, ln, wm, _) in runs2 for s in range(s, s + ln)}
-    assert f2[2] is True
-
-    # a wall at the global wrap seam shows up in the TOP edge flag (the
-    # edge window includes the neighbor's halo rows, with x wrap)
-    m3 = np.zeros((256, ny), bool)
-    m3[255, :] = True
-    top3, _, bot3 = fk.shard_partition_regions(m3, 2, br, T, ny, nyp, lpad)
-    assert top3 and bot3
-
-
-def test_sharded_pallas_union_partition_matches_xla():
-    """End-to-end through the union-partitioned interior: masked +
-    select-free interior runs and two wall-free edge launches (the
-    barrier sits mid-shard, away from every shard edge), 2-device mesh,
-    odd step count (exercises the T=1 remainder partition too)."""
-    cfg = LatticeConfig(nx=256, ny=40, dtype=np.float32)
-    w = geometry.empty(cfg.nx, cfg.ny)
-    w[40:44, 10:20] = True
-    mesh = sharded.make_mesh(2)
-    from latticeboltzmann_tpu.ops import fused_kernel as fk
-    from latticeboltzmann_tpu.models.engine import initial_state
-    import jax.numpy as jnp
-
-    run = sharded.make_pallas_run_steps(mesh, cfg, interpret=True, mask=w)
-    # the partition actually specialized: more than one interior launch
-    nyp, lpad = fk.pick_layout(cfg.ny, 3)
-    top_wm, runs, bot_wm = fk.shard_partition_regions(
-        w, 2, 32, min(fk.DEFAULT_TEMPORAL, 32), cfg.ny, nyp, lpad
-    )
-    assert len(runs) == 2 and not top_wm and not bot_wm
-    f, wd = sharded.shard_state(mesh, jnp.asarray(initial_state(cfg)), jnp.asarray(w))
-    out = np.asarray(run(f, wd, 13))
-    ref = Simulation(cfg, w, backend="xla").run(13).state()
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
-
-
-def test_sharded_interior_region_matches_xla():
-    """A recompute region INSIDE a sharded interior launch (lane-type
-    thin barrier mid-shard): free evolution + masked sub-window
-    recomputation must match the XLA engine through the shard_map path.
-    The cost model is zeroed (as in test_pallas._forced_regions) so the
-    region engages at CPU test width."""
-    from latticeboltzmann_tpu.ops import fused_kernel as fk
-
-    cfg = LatticeConfig(nx=256, ny=1152, dtype=np.float32)
-    w = geometry.empty(cfg.nx, cfg.ny)
-    w[40:56, 600:605] = True  # lane-type wall, shard 0, interior block 1
-    T = 2
-    nyp, lpad = fk.pick_layout(cfg.ny, T)
-
-    orig_part = fk.shard_partition_regions
-    orig_fixed = fk.REGION_FIXED_COST
-
-    def zero_cost(mask, n_dev, br, temporal, ny, nyp, lpad, launch_cost=None):
-        return orig_part(mask, n_dev, br, temporal, ny, nyp, lpad, 0.0)
-
-    fk.shard_partition_regions = zero_cost
-    fk.REGION_FIXED_COST = 0.0
-    fk.make_step.cache_clear()
-    try:
-        _, runs, _ = zero_cost(w, 2, 32, T, cfg.ny, nyp, lpad)
-        assert any(r[3] is not None and r[3][1] for r in runs), "lane region expected"
-        from latticeboltzmann_tpu.models.engine import initial_state
-        import jax.numpy as jnp
-
-        mesh = sharded.make_mesh(2)
-        run = sharded.make_pallas_run_steps(mesh, cfg, interpret=True, mask=w,
-                                            temporal=T)
-        f, wd = sharded.shard_state(mesh, jnp.asarray(initial_state(cfg)),
-                                    jnp.asarray(w))
-        out = np.asarray(run(f, wd, 2 * 2 * T))  # multiple of 2T: no remainder
-        ref = Simulation(cfg, w, backend="xla").run(2 * 2 * T).state()
-        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
-    finally:
-        fk.shard_partition_regions = orig_part
-        fk.REGION_FIXED_COST = orig_fixed
-        fk.make_step.cache_clear()

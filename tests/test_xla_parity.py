@@ -139,10 +139,9 @@ def test_bf16_storage_computes_in_f32():
     steps, and a column beyond the kinetic front keeps EXACT opposite-
     pair symmetry: the rounded rest state settles to a fixed point of
     round(relax(.)) whose symmetric pairs stay bitwise equal, so u_y
-    there is exactly 0.0 — the explanation of the 4000x16000 bf16
-    benchmark row's Re = 0.0 (its probe column sees only a sub-quantum
-    kinetic precursor; BENCH_RESULTS.jsonl carries the reached-column
-    Reynolds)."""
+    there is exactly 0.0 — the explanation of a 4000x16000 bf16 run's
+    Re = 0.0 at ny/2 (its probe column sees only a sub-quantum kinetic
+    precursor; bench_suite also reports a reached column's Reynolds)."""
     cfg = LatticeConfig(nx=16, ny=700, dtype=jnp.bfloat16)
     walls = geometry.channel(cfg.nx, cfg.ny)
     sim = Simulation(cfg, walls, backend="xla")
